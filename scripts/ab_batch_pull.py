@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Interleaved A/B of the batch pull strategy on the REAL link.
+"""Interleaved A/B of the batch pull strategy on the device.
 
 sliced = main-thread lag-2 occupancy-exact prefix slice (default)
 whole  = one whole-buffer pull per pair (round-5 default before sliced)
 exact  = two-phase occupancy-exact pull from the pull pool
 
-Interleaves A B A B ... so hour-scale link drift hits both arms equally;
+Interleaves A B A B ... so drift over the run hits both arms equally;
 prints per-rep walls and min/median per arm.
 
 Usage: python scripts/ab_batch_pull.py [reps=4]
@@ -24,7 +24,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from bench import build_batch_pairs
-    from describealign_tpu.alignment.api import align_batch_from_pcm
+    from describealign_jax.alignment.api import align_batch_from_pcm
 
     quiet = io.StringIO()
     pairs, lens, planted, kinds = build_batch_pairs()

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Dev A/B: host-compute token count x pool workers on the real link.
+"""Dev A/B: host-compute token count x pool workers on the device.
 
-Alternates configs within one process (link bandwidth drifts minute to
-minute, so interleaving beats sequential blocks) and reports best-of per
+Alternates configs within one process (interleaving spreads drift over
+all configs) and reports best-of per
 config through the PRODUCTION entry (align_batch_from_pcm).
 
 Usage: python scripts/ab_host_tokens.py [rounds]
@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     from bench import build_batch_pairs
-    from describealign_tpu.alignment import api
+    from describealign_jax.alignment import api
 
     rounds = int(sys.argv[1]) if len(sys.argv) > 1 else 3
     pairs, lens, planted, kinds = build_batch_pairs()
@@ -40,7 +40,7 @@ def main():
             wall = time.time() - t
             best[cfg] = min(best[cfg], wall)
             print(f"r{r} tokens={tokens:2d} workers={workers} "
-                  f"wall={wall:6.2f} s  tput={batch_minutes / wall:5.2f}",
+                  f"wall={wall:6.2f} s  rate={batch_minutes / wall:5.2f}",
                   flush=True)
             for a, b in zip(res, ref):
                 assert np.allclose(a[0], b[0]) and np.allclose(a[1], b[1])
@@ -48,7 +48,7 @@ def main():
     print("\nbest per config:")
     for cfg, w in best.items():
         print(f"tokens={cfg[0]:2d} workers={cfg[1]}  wall={w:6.2f} s  "
-              f"tput={batch_minutes / w:5.2f} audio-min/s")
+              f"rate={batch_minutes / w:5.2f} audio-min/s")
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@
 Dispatches the default batch device programs (match_stream_pair +
 concat_chunks_compact) for all 8 bench pairs back-to-back and pulls only
 each pair's 4-byte compact header (forcing execution without the big
-D2H), so the wall measures what the CHIP sustains when the host/link are
-not the bottleneck. This is the device half of the round-4 closed batch
-proof: per-chip capability vs the measured per-core host floor.
+D2H), so the wall measures what the device sustains when the host and
+transfers are not the bottleneck: per-device capability vs the host
+floor.
 
 Usage: python scripts/bench_device_ceiling.py [reps=3]
 """
@@ -28,7 +28,7 @@ def main():
     import jax
 
     from bench import build_batch_pairs
-    from describealign_tpu.alignment import api, matching
+    from describealign_jax.alignment import api, matching
 
     quiet = io.StringIO()
     pairs, lens, planted, kinds = build_batch_pairs()

@@ -9,7 +9,7 @@ reduction levels - tiny vectors, pure iteration latency (PERF.md). vmap
 makes every iteration process B problems at once, so the latency amortizes
 B-fold. This measures: native x B (host, sequential), device x B
 (sequential dispatches), device batched (solve_l1_fit_device_batched), and
-checks result agreement. Run solo on the real TPU.
+checks result agreement. Run solo on the GPU.
 
 Usage: python scripts/bench_fit_batched.py [B] [reps]
 """
@@ -36,8 +36,8 @@ def make_node_set(seed, n=5800):
 
 def main():
     import jax
-    from describealign_tpu.alignment import fit
-    from describealign_tpu.alignment.fit_device import (
+    from describealign_jax.alignment import fit
+    from describealign_jax.alignment.fit_device import (
         solve_l1_fit_device, solve_l1_fit_device_batched)
 
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 8

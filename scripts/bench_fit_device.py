@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """Dev benchmark: the three L1-fit backends on real bench-scale nodes.
 
-Round 2 shipped fit_device (JAX ADMM + cyclic reduction) stress-tested on
-the CPU backend but never timed on the actual TPU; this measures all three
+fit_device (JAX ADMM + cyclic reduction) is stress-tested on the CPU
+backend; this times it on the device and measures all three
 backends on the compressed node set the 22-min bench pair actually
 produces, plus a denser synthetic set, and checks result agreement.
-Run solo on the TPU host.
+Run solo on the GPU host.
 """
 import os
 import sys
@@ -19,7 +19,7 @@ from scripts.profile_e2e import load_pair  # noqa: E402
 
 
 def bench_nodes(cx, cy, tag, reps=5):
-    from describealign_tpu.alignment import fit
+    from describealign_jax.alignment import fit
 
     results = {}
     for backend in ('native', 'device', 'highs'):
@@ -46,7 +46,7 @@ def bench_nodes(cx, cy, tag, reps=5):
 
 def main():
     import jax
-    from describealign_tpu.alignment import api, continuity
+    from describealign_jax.alignment import api, continuity
     print("backend:", jax.default_backend(), flush=True)
 
     video, audio, sv, sa = load_pair()

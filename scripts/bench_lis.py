@@ -17,7 +17,7 @@ import numpy as np
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from describealign_tpu.alignment import lis  # noqa: E402
+from describealign_jax.alignment import lis  # noqa: E402
 
 
 def main():

@@ -13,7 +13,7 @@ This measures, on the Ask-Dad-scale bench pair:
   - with DESCRIBEALIGN_WSOLA=1 (reference-parity splicer),
 
 each over the stereo float32 arrays combine() would hand it. Run solo
-(TPU needed only for the alignment and the PV=device variant).
+(the device is needed only for the alignment and the PV=device variant).
 
 Usage: python scripts/bench_stretch.py [reps]
 """
@@ -29,8 +29,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
     from bench import build_batch_pairs
-    from describealign_tpu.alignment.api import align_from_pcm, _pad_pcm_i16
-    from describealign_tpu.stretch.segments import replace_aligned_segments
+    from describealign_jax.alignment.api import align_from_pcm, _pad_pcm_i16
+    from describealign_jax.stretch.segments import replace_aligned_segments
 
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     print("backend:", jax.default_backend(), flush=True)

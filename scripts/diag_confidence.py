@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Experiment: calibrate a coarse-confidence floor for the low-confidence
-warning guard (round-5 VERDICT item 2).
+warning guard.
 
 For every draw of the requested campaign profiles, compute with the numpy
 coarse twins (scripts/diag_coarse_feats.py):
@@ -86,7 +86,7 @@ def one_draw(ref, video, audio, meta):
     rank = np.cumsum(base_v) - 1
     mask_v = base_v & (rank % 4 == 0)
 
-    from describealign_tpu.alignment.matching import COARSE_STREAMS
+    from describealign_jax.alignment.matching import COARSE_STREAMS
     p_map = score_map(ms_a, norms_a, mask_a, ms_v, norms_v, mask_v,
                       COARSE_STREAMS)
     nb, kv = p_map.shape

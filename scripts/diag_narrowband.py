@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Diagnose the narrowband-campaign wrong-map draws (seed 20260824,
 draws 02/05: we return a confidently wrong map where the reference stays
-accurate; diag log in ROUND4.md).
+accurate).
 
 For a given draw, recomputes the features, runs our coarse stage alone,
 and reports where each k-best track sits relative to the ground-truth
@@ -32,7 +32,7 @@ def main():
 
     ref = load_reference()
     import jax
-    from describealign_tpu.alignment import matching
+    from describealign_jax.alignment import matching
 
     rng = np.random.default_rng(camp_seed)
     base = _content_seed_base(camp_seed)
@@ -50,7 +50,7 @@ def main():
         nmin_v = min(len(f) for f in vf)
         npad = matching.bucket_pad(max(nmin_a, nmin_v)) \
             if hasattr(matching, 'bucket_pad') else None
-        from describealign_tpu.alignment.api import _bucket_pad, _stack_padded
+        from describealign_jax.alignment.api import _bucket_pad, _stack_padded
         npad = max(_bucket_pad(nmin_a), _bucket_pad(nmin_v))
         fa = _stack_padded(af, nmin_a, npad)
         fv = _stack_padded(vf, nmin_v, npad)

@@ -3,10 +3,10 @@
 
 The reference aligns arbitrarily long media in ~630 MB of host RAM
 (describealign.py:610-633 builds only per-frame hash dicts). Our coarse
-pass materialized (blocks x lanes) score+cost tensors - ~14 GB at 3 hours,
-an OOM on a 16 GB v5e. matching._coarse_dp_streamed (auto-selected above
-COARSE_STREAM_ELEMS) streams the score map in COARSE_CHUNK tiles with
-checkpointed cost rows instead.
+pass materialized (blocks x lanes) score+cost tensors - ~14 GB at 3 hours.
+matching._coarse_dp_streamed (auto-selected above
+matching.coarse_stream_elems(), a share of the device's memory) streams
+the score map in COARSE_CHUNK tiles with checkpointed cost rows instead.
 
 This script builds a 3-hour synthetic pair at the FEATURE level (no PCM:
 generating 3 h of 44.1 kHz audio on the bench host would dominate the run
@@ -14,8 +14,15 @@ and prove nothing about the device) with a planted lead-in and narration
 insertions, then runs the full production streaming path (coarse + chunked
 fine + streaming LIS + host stages) and checks the recovered offset.
 
+With --memory it instead compiles match_coarse (nothing runs) at each
+given length with the materialized and the streamed DP forced, and prints
+XLA's scratch bytes per score-map element and the path the device's
+limit picks: the readings behind matching.COARSE_BYTES_PER_ELEM.
+
 Usage: python scripts/dryrun_longmedia.py [hours]
+       python scripts/dryrun_longmedia.py --memory hours [hours ...]
 """
+import argparse
 import os
 import sys
 import time
@@ -44,10 +51,51 @@ def synth_feature_stream(n_frames, seed):
     return out
 
 
-def main():
-    hours = float(sys.argv[1]) if len(sys.argv) > 1 else 3.0
+def _lanes(npad):
+    from describealign_jax.alignment import matching
+    return ((npad - 41 - max(matching.SUB_LANE_SHIFTS))
+            // matching.COARSE_STRIDE + 1)
+
+
+def memory_report(hours_list):
     import jax
-    from describealign_tpu.alignment import api, matching
+    from describealign_jax.alignment import api, matching
+    dev = jax.devices()[0]
+    limit = matching.coarse_stream_elems()
+    print(f"{dev.device_kind}: bytes_limit "
+          f"{(dev.memory_stats() or {}).get('bytes_limit')}, coarse DP "
+          f"streams above {limit} elements", flush=True)
+    n = jax.ShapeDtypeStruct((), np.int32)
+    for hours in hours_list:
+        npad = api._bucket_pad(int(hours * 3600 * FPS))
+        feats = jax.ShapeDtypeStruct((5, npad), np.float16)
+        elems = matching.nb_for(npad) * _lanes(npad)
+        for name, forced in (('materialized', 1 << 62), ('streamed', 0)):
+            matching.COARSE_STREAM_ELEMS = forced
+            jax.clear_caches()
+            mem = matching.match_coarse.lower(
+                feats, n, feats, n).compile().memory_analysis()
+            temp = mem.temp_size_in_bytes
+            print(f"{hours:g} h (npad {npad}, {elems} elements) {name}: "
+                  f"temp {temp} B = {temp / elems:.3f} B/element",
+                  flush=True)
+        matching.COARSE_STREAM_ELEMS = None
+        print(f"  this device's path: "
+              f"{'streamed' if elems > limit else 'materialized'}",
+              flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('hours', nargs='*', type=float)
+    ap.add_argument('--memory', action='store_true')
+    args = ap.parse_args()
+    if args.memory:
+        memory_report(args.hours or [0.45, 1.0, 2.0, 3.0])
+        return
+    hours = args.hours[0] if args.hours else 3.0
+    import jax
+    from describealign_jax.alignment import api, matching
 
     n_content = int(hours * 3600 * FPS)
     lead = int(202.0 * FPS)
@@ -72,9 +120,9 @@ def main():
         return out
 
     fa, fv = pad(audio), pad(video)
-    kv = (npad - 41 - max(matching.SUB_LANE_SHIFTS)) // matching.COARSE_STRIDE + 1
+    kv = _lanes(npad)
     nb = matching.nb_for(npad)
-    streamed = nb * kv > matching.COARSE_STREAM_ELEMS
+    streamed = nb * kv > matching.coarse_stream_elems()
     print(f"{hours:.1f} h pair: na={na} nv={nv} npad={npad} "
           f"nb*kv={nb * kv / 1e6:.0f}M -> coarse path: "
           f"{'STREAMED' if streamed else 'materialized'}", flush=True)
@@ -83,11 +131,11 @@ def main():
     t0 = time.time()
     dev_a = jax.device_put(fa.astype(np.float16))
     dev_v = jax.device_put(fv.astype(np.float16))
-    y, x = api._streamed_lis(dev_a, na, dev_v, nv)
+    y, x, margin = api._streamed_lis(dev_a, na, dev_v, nv)
     res = api._host_stages_from_path(y, x, fa, fv, na, nv, 'native',
-                                     quiet=True)
+                                     quiet=True, margin=margin)
     wall = time.time() - t0
-    audio_times, video_times, sim, path, slope = res
+    audio_times, video_times, sim, path, slope = res[:5]
     offset = float(audio_times[0] - video_times[0])
     stats = {}
     try:

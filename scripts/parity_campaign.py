@@ -21,7 +21,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from describealign_tpu.utils.synthmedia import speech_like  # noqa: E402
+from describealign_jax.utils.synthmedia import speech_like  # noqa: E402
 
 SR = 44100
 
@@ -42,7 +42,7 @@ def load_reference():
 
 
 def draw_scenario(rng, seed, profile="default"):
-    from describealign_tpu.utils.synthmedia import music_bed
+    from describealign_jax.utils.synthmedia import music_bed
 
     if profile == "long":
         # minutes-scale media with Ask-Dad-scale lead-ins: exercises the
@@ -324,7 +324,7 @@ def diag(indices, camp_seed=20260816, profile="default"):
     """Rerun specific draw indices and score BOTH sides against ground
     truth (usage: parity_campaign.py diag [seed=N] [profile=long] 3 4 11)."""
     ref = load_reference()
-    import describealign_tpu as da
+    import describealign_jax as da
     rng = np.random.default_rng(camp_seed)
     base = _content_seed_base(camp_seed)
     for i in range(max(indices) + 1):
@@ -365,7 +365,7 @@ def main():
     profile = sys.argv[3] if len(sys.argv) > 3 else "default"
     start = int(sys.argv[4]) if len(sys.argv) > 4 else 0
     ref = load_reference()
-    import describealign_tpu as da
+    import describealign_jax as da
     rng = np.random.default_rng(camp_seed)
     base = _content_seed_base(camp_seed)
     worst = []

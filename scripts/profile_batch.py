@@ -4,7 +4,7 @@
 Mirrors api._align_batch_streamed with per-event wall/CPU timestamps so the
 stall structure is visible: for each pair, feature extraction, uploads,
 dispatch, the one concatenated pull, the LIS feed, and the refinement tail,
-all stamped on a shared wall clock. Run SOLO on the real TPU.
+all stamped on a shared wall clock. Run SOLO on the GPU.
 
 Usage: python scripts/profile_batch.py [reps]
 """
@@ -22,7 +22,7 @@ def main():
     import jax
     from concurrent.futures import ThreadPoolExecutor
     from bench import build_batch_pairs
-    from describealign_tpu.alignment import api, matching
+    from describealign_jax.alignment import api, matching
 
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     pairs, lens, planted, kinds = build_batch_pairs()
@@ -50,7 +50,7 @@ def main():
         events.clear()
         results = [None] * b
         in_flight = threading.Semaphore(max(2, device_depth + 1))
-        from describealign_tpu.alignment import lis
+        from describealign_jax.alignment import lis
 
         def cpu_dense(packed, starts, fa, fv, na, nv, i):
             t0, c0 = time.time(), time.thread_time()
@@ -219,7 +219,7 @@ def main():
                 else:
                     combo_dev = matching.concat_chunks_with_starts(
                         chunks, starts_dev, margin_dev)
-                    api._async_host_copy(combo_dev)
+                    combo_dev.copy_to_host_async()
                     t0, c0 = ev('dispatch', i, t0, c0)
                     futs.append((i, pull_pool.submit(
                         pull_dense, cpu_pool, combo_dev,
@@ -239,11 +239,11 @@ def main():
         if wall < best[0]:
             best = (wall, cpu, snap)
         print(f"wall={wall:6.2f} s  cpu={cpu:6.2f} s  "
-              f"tput={batch_minutes / wall:5.2f} audio-min/s", flush=True)
+              f"rate={batch_minutes / wall:5.2f} audio-min/s", flush=True)
 
     wall, cpu, snap = best
     print(f"\nBEST wall={wall:.2f}  cpu={cpu:.2f}  "
-          f"tput={batch_minutes / wall:.2f} audio-min/s")
+          f"rate={batch_minutes / wall:.2f} audio-min/s")
     print(f"{'tag':10s} {'count':>5s} {'wall_sum':>9s} {'cpu_sum':>8s}")
     agg = {}
     for (ts, te, c, tag, i) in snap:

@@ -38,8 +38,8 @@ def timed(name, fn, *args, n=3, pull=_pull_any):
 def main():
     import jax
     import jax.numpy as jnp
-    from describealign_tpu.alignment import matching
-    from describealign_tpu.alignment.preprocess import (
+    from describealign_jax.alignment import matching
+    from describealign_jax.alignment.preprocess import (
         preprocess_features, valid_audio_mask, valid_video_mask)
 
     video, audio, sv, sa = load_pair()
@@ -55,7 +55,7 @@ def main():
     @jax.jit
     def feats_only(pcm_a, pcm_v, la, lv):
         def feats_of(pcm_i16):
-            from describealign_tpu.ops import features as F
+            from describealign_jax.ops import features as F
             pcm = pcm_i16.astype(jnp.float16).astype(jnp.float32)
             fs = (F.energy_feature(pcm), F.zero_crossing_feature(pcm)) \
                 + tuple(F.freq_band_features(pcm))

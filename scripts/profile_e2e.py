@@ -1,8 +1,5 @@
 #!/usr/bin/env python
-"""Dev profiling: stage-by-stage breakdown of align_from_pcm on real TPU.
-
-Caches the synthetic 22-min pair under /tmp so iterations skip generation.
-"""
+"""Dev profiling: stage-by-stage breakdown of align_from_pcm on the GPU."""
 import io
 import os
 import sys
@@ -13,34 +10,21 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-CACHE = "/tmp/da_scale_pair.npz"
-
 
 def load_pair():
-    if os.path.exists(CACHE):
-        z = np.load(CACHE)
-        return z["video"], z["audio"], int(z["sv"]), int(z["sa"])
-    from describealign_tpu.utils.synthmedia import build_pair
-    from describealign_tpu.alignment.api import _pad_pcm_i16
-    narr = tuple((120.0 + 150.0 * k, 12.0) for k in range(8))
-    video, audio, _ = build_pair(content_seconds=1320.0, narration=narr,
-                                 lead_in=202.0, seed=42)
-    video = np.clip(video, -32768, 32767).astype(np.int16)
-    audio = np.clip(audio, -32768, 32767).astype(np.int16)
-    sv, sa = video.shape[1], audio.shape[1]
-    video = _pad_pcm_i16(video)
-    audio = _pad_pcm_i16(audio)
-    np.savez(CACHE, video=video, audio=audio, sv=sv, sa=sa)
-    return video, audio, sv, sa
+    """The bench's 22-min pair, bucket-padded int16: (video, audio,
+    true video samples, true audio samples)."""
+    import chip_smoke
+    return chip_smoke.scale_pair()
 
 
 def main():
     """Times the DEVICE-feature configuration (upload PCM, extract on
-    TPU) - the fast-link opt-in path. See profile_round2.py for the
-    default host-feature/streamed breakdown."""
+    the device). See profile_round2.py for the default host-feature/
+    streamed breakdown."""
     import jax
-    from describealign_tpu.alignment import matching
-    from describealign_tpu.alignment.api import _host_stages
+    from describealign_jax.alignment import matching
+    from describealign_jax.alignment.api import _host_stages
 
     video, audio, sv, sa = load_pair()
     na, nv = sa // 210, sv // 210

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Dev profiling: the host-feature fast path (features on host, match on TPU)."""
+"""Dev profiling: the host-feature fast path (features on host, match on the GPU)."""
 import os
 import sys
 import time
@@ -16,8 +16,8 @@ def main():
     import jax.numpy as jnp
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
     import reference_impl as R
-    from describealign_tpu.alignment import matching
-    from describealign_tpu.alignment.api import _bucket_pad
+    from describealign_jax.alignment import matching
+    from describealign_jax.alignment.api import _bucket_pad
 
     video, audio, sv, sa = load_pair()
     na, nv = sa // 210, sv // 210
@@ -38,7 +38,7 @@ def main():
 
     @jax.jit
     def match_from_feats(feats_a, len_a, feats_v, len_v):
-        from describealign_tpu.alignment.preprocess import preprocess_features
+        from describealign_jax.alignment.preprocess import preprocess_features
         ms_a, norms_a = preprocess_features(feats_a)
         ms_v, norms_v = preprocess_features(feats_v)
         return matching._match_core(ms_a, norms_a, feats_a[0], len_a,

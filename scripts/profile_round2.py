@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Dev profiling: per-stage breakdown of the host-feature fast path +
-host refinement stages, against the cached bench pair."""
+host refinement stages, on the bench pair."""
 import os
 import sys
 import time
@@ -9,21 +9,17 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-CACHE = "/tmp/describealign_bench_pair_v1.npz"
-
 
 def main():
     import jax
-    from describealign_tpu.alignment import continuity, fit, lis, matching, \
+    from describealign_jax.alignment import continuity, fit, lis, matching, \
         outputs, refine
-    from describealign_tpu.alignment.api import (_bucket_pad, _fail_if_short,
+    from describealign_jax.alignment.api import (_bucket_pad, _fail_if_short,
                                                  host_features_padded)
-    from describealign_tpu.alignment.refine_native import refine_dp_flat
+    from describealign_jax.alignment.refine_native import refine_dp_flat
 
-    z = np.load(CACHE)
-    video = np.clip(z["video"], -32768, 32767).astype(np.int16)
-    audio = np.clip(z["audio"], -32768, 32767).astype(np.int16)
-    sv, sa = video.shape[1], audio.shape[1]
+    from scripts.profile_e2e import load_pair
+    video, audio, sv, sa = load_pair()
     na, nv = sa // 210, sv // 210
     npad = max(_bucket_pad(sv // 210), _bucket_pad(sa // 210))
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Dev profiling: per-stage timing of the host refinement tail.
 
-Runs the production matcher once (real TPU) to get a genuine LIS path for
+Runs the production matcher once (on the GPU) to get a genuine LIS path for
 the bench pair, then times each _host_stages_from_path stage in a loop on
 the host. Run solo. Usage: python scripts/profile_tail.py [reps]
 """
@@ -16,14 +16,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     import jax
-    from describealign_tpu.alignment import api, continuity, fit, refine
-    from describealign_tpu.alignment.refine_native import refine_dp_flat
+    from describealign_jax.alignment import api, continuity, fit, refine
+    from describealign_jax.alignment.refine_native import refine_dp_flat
 
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 5
-    z = np.load('/tmp/describealign_bench_pair_v1.npz')
-    video = np.clip(z['video'], -32768, 32767).astype(np.int16)
-    audio = np.clip(z['audio'], -32768, 32767).astype(np.int16)
-    sv, sa = video.shape[1], audio.shape[1]
+    from scripts.profile_e2e import load_pair
+    video, audio, sv, sa = load_pair()
     npad = max(api._bucket_pad(sv // 210), api._bucket_pad(sa // 210))
     fv, nv = api.host_features_padded(video, sv, npad)
     dev_v = jax.device_put(fv.astype(np.float16))
@@ -58,7 +56,7 @@ def main():
         path = refine_dp_flat(pj, pc, pq, offsets, len(clusters),
                               len(video_scaled))
         t7 = time.time()
-        from describealign_tpu.alignment import outputs
+        from describealign_jax.alignment import outputs
         outputs.similarity_and_nodes(path, len(audio_scaled),
                                      len(video_scaled), na, nv)
         t8 = time.time()

@@ -3,7 +3,7 @@
 across the 8 batch bench pairs (the batch profile shows the low-similarity
 pair's tail costing ~4x the others — this pins which stage).
 
-Runs the production matcher once per pair (real TPU) to get genuine LIS
+Runs the production matcher once per pair (on the GPU) to get genuine LIS
 paths, then times each _host_stages_from_path stage per pair on the host.
 Run solo. Usage: python scripts/profile_tail_batch.py [reps]
 """
@@ -19,9 +19,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
     from bench import build_batch_pairs
-    from describealign_tpu.alignment import api, continuity, fit, refine
-    from describealign_tpu.alignment.refine_native import refine_dp_flat
-    from describealign_tpu.alignment import outputs
+    from describealign_jax.alignment import api, continuity, fit, refine
+    from describealign_jax.alignment.refine_native import refine_dp_flat
+    from describealign_jax.alignment import outputs
 
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 3
     pairs, lens, planted, kinds = build_batch_pairs()

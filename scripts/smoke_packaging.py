@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Packaging smoke run (VERDICT r4 item 5).
+"""Packaging smoke run.
 
 PyInstaller itself is not installed in this image, so the closest
 executable validation of the packaging layer is three checks:
@@ -10,9 +10,9 @@ executable validation of the packaging layer is three checks:
    resource-file shipping in describealign.spec).
 2. installed-package run: install the wheel into a throwaway
    --target dir (no network, no deps) and run
-   `python -m describealign_tpu --version` from it - this exercises
+   `python -m describealign_jax --version` from it - this exercises
    the "installed package" provenance branch of the CLI.
-3. spec lint: execute describealign_tpu.spec with stubbed
+3. spec lint: execute describealign_jax.spec with stubbed
    Analysis/PYZ/EXE/COLLECT/BUNDLE classes and assert the entry
    script exists, every datas source exists, and every hiddenimport
    resolves - the failure modes a real `pyinstaller` run would hit
@@ -49,9 +49,9 @@ def main():
         whl_path = os.path.join(dist, whl[0])
         import zipfile
         names = zipfile.ZipFile(whl_path).namelist()
-        for need in ("describealign_tpu/native/dp.cpp",
-                     "describealign_tpu/native/features.cpp",
-                     "describealign_tpu/__main__.py"):
+        for need in ("describealign_jax/native/dp.cpp",
+                     "describealign_jax/native/features.cpp",
+                     "describealign_jax/__main__.py"):
             assert need in names, f"wheel missing {need}"
 
         # 2. installed-package --version (provenance branch)
@@ -59,7 +59,7 @@ def main():
             "--no-deps", "--quiet", "--target", target, whl_path])
         env = dict(os.environ, PYTHONPATH=target, JAX_PLATFORMS="cpu")
         out = subprocess.run(
-            [sys.executable, "-m", "describealign_tpu", "--version"],
+            [sys.executable, "-m", "describealign_jax", "--version"],
             check=True, capture_output=True, text=True, env=env,
             cwd=tmp).stdout
         assert "version:" in out and "installed package" in out, out
@@ -76,8 +76,8 @@ def main():
 
         stubs = {n: type(n, (_Stub,), {})
                  for n in ("Analysis", "PYZ", "EXE", "COLLECT", "BUNDLE")}
-        g = dict(stubs, __file__="describealign_tpu.spec")
-        spec_path = os.path.join(REPO, "describealign_tpu.spec")
+        g = dict(stubs, __file__="describealign_jax.spec")
+        spec_path = os.path.join(REPO, "describealign_jax.spec")
         exec(compile(open(spec_path).read(), spec_path, "exec"), g)
         (a_args, a_kw), = captured["Analysis"]
         entry = a_args[0][0]

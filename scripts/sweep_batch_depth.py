@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Depth/pull-thread sweep for the default batch config (chunked dispatch
-+ compact transport) on the real link — the round-3 verdict's lever (c):
-re-tune device_depth for slow-link hours. One JSON line per config.
++ compact transport) on the device: re-tunes device_depth. One JSON line
+per config.
 
 Usage: python scripts/sweep_batch_depth.py [reps=3] [depths=3,4,6,8]
 """
@@ -21,7 +21,7 @@ def main():
     from contextlib import redirect_stdout
 
     from bench import build_batch_pairs
-    from describealign_tpu.alignment.api import align_batch_from_pcm
+    from describealign_jax.alignment.api import align_batch_from_pcm
 
     quiet = io.StringIO()
     pairs, lens, planted, kinds = build_batch_pairs()

@@ -1,6 +1,5 @@
-"""Sweep batch scheduling knobs (device_depth x host_workers) on the real
-TPU to find how much of the ~0.4 s/pair unhidden link wait a deeper
-pipeline recovers. Run SOLO (no concurrent jobs). Usage:
+"""Sweep batch scheduling knobs (device_depth x host_workers) on the GPU
+to find how much unhidden device wait a deeper pipeline recovers. Run SOLO (no concurrent jobs). Usage:
 
     python scripts/sweep_batch_sched.py [reps]
 
@@ -16,7 +15,7 @@ def main():
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     sys.path.insert(0, ".")
     from bench import build_batch_pairs
-    from describealign_tpu.alignment.api import align_batch_from_pcm
+    from describealign_jax.alignment.api import align_batch_from_pcm
 
     pairs, lens, planted, kinds = build_batch_pairs()
     batch_minutes = sum(s_a / 44100.0 / 60.0 for (_, s_a) in lens)
@@ -35,13 +34,13 @@ def main():
                                        host_workers=workers)
             best = min(best, time.time() - t)
             assert len(out) == len(pairs)
-        tput = batch_minutes / best
-        results.append((depth, workers, best, tput))
+        rate = batch_minutes / best
+        results.append((depth, workers, best, rate))
         print(f"depth={depth} workers={workers}  wall={best:6.2f} s  "
-              f"tput={tput:5.2f} audio-min/s", flush=True)
+              f"rate={rate:5.2f} audio-min/s", flush=True)
     best = max(results, key=lambda r: r[3])
     print(f"BEST: depth={best[0]} workers={best[1]} "
-          f"tput={best[3]:.2f} audio-min/s")
+          f"rate={best[3]:.2f} audio-min/s")
 
 
 if __name__ == "__main__":

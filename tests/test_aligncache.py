@@ -3,7 +3,7 @@ import os
 
 import numpy as np
 
-from describealign_tpu.utils import aligncache
+from describealign_jax.utils import aligncache
 
 
 def _fake_outputs():

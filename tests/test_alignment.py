@@ -2,8 +2,9 @@
 import numpy as np
 import pytest
 
-from describealign_tpu.ops.features import extract_features
-from describealign_tpu.alignment.api import align
+from describealign_jax.ops.features import extract_features
+from describealign_jax.alignment import matching
+from describealign_jax.alignment.api import align
 from tests.synth import build_pair, mapping_from_segments
 
 
@@ -53,7 +54,7 @@ def test_align_from_pcm_device_features(monkeypatch):
     program (the fast-link configuration) must produce a valid alignment
     end to end."""
     monkeypatch.setenv('DESCRIBEALIGN_FEATURES', 'device')
-    from describealign_tpu.alignment.api import align_from_pcm
+    from describealign_jax.alignment.api import align_from_pcm
 
     video, audio, segments = build_pair(content_seconds=40.0, narration=(),
                                         lead_in=6.0, seed=3)
@@ -69,13 +70,13 @@ def test_align_from_pcm_device_features(monkeypatch):
 
 def test_align_without_native_library(monkeypatch):
     """The whole pipeline must run on pure-Python fallbacks when no C++
-    compiler/library is available (numpy features, SortedList LIS, python
+    compiler/library is available (numpy features, stdlib-bisect LIS, python
     pass-2 DP, python fused-lasso): same pair as test_align_offset_only so
     the compiled device shapes are cache-hot."""
-    from describealign_tpu.alignment import native
+    from describealign_jax.alignment import native
     monkeypatch.setattr(native, '_LIB', None)
     monkeypatch.setattr(native, '_TRIED', True)
-    from describealign_tpu.alignment.api import align_from_pcm
+    from describealign_jax.alignment.api import align_from_pcm
 
     video, audio, segments = build_pair(content_seconds=40.0, narration=(),
                                         lead_in=6.0, seed=3)
@@ -93,8 +94,8 @@ def test_streamed_lis_matches_single_shot():
     """The chunked matcher + streaming LIS must yield the exact path the
     single-shot match_from_features + lis_from_match pipeline yields."""
     import jax
-    from describealign_tpu.alignment import lis, matching
-    from describealign_tpu.alignment.api import (_bucket_pad, _streamed_lis,
+    from describealign_jax.alignment import lis, matching
+    from describealign_jax.alignment.api import (_bucket_pad, _streamed_lis,
                                                  host_features_padded)
     if not lis.LisStream.available():
         pytest.skip("native library unavailable")
@@ -122,12 +123,12 @@ def test_streamed_lis_matches_single_shot():
 def test_streamed_multichunk_matches_single_shot(monkeypatch):
     """Chunk-BOUNDARY coverage: with a shrunk chunk size, ~107 s of media
     streams as 4 chunks, exercising the per-chunk a_base offsets, on-device
-    starts slicing, and ordered feeds that full-scale media hits on TPU.
+    starts slicing, and ordered feeds that full-scale media hits.
     Uses its own shape bucket so the patched chunking never collides with
     other tests' cached coarse traces."""
     import jax
-    from describealign_tpu.alignment import lis, matching
-    from describealign_tpu.alignment.api import (_bucket_pad, _streamed_lis,
+    from describealign_jax.alignment import lis, matching
+    from describealign_jax.alignment.api import (_bucket_pad, _streamed_lis,
                                                  host_features_padded)
     if not lis.LisStream.available():
         pytest.skip("native library unavailable")
@@ -171,10 +172,10 @@ def test_streamed_coarse_dp_matches_materialized(monkeypatch):
     same k-best track starts and centers as the materialized path.
     ~150 s of content spans 3 COARSE_CHUNK tiles, exercising checkpoint
     handoff and jump backtrace across chunk boundaries."""
-    from describealign_tpu.alignment import matching
-    from describealign_tpu.alignment.api import (_bucket_pad,
+    from describealign_jax.alignment import matching
+    from describealign_jax.alignment.api import (_bucket_pad,
                                                  host_features_padded)
-    from describealign_tpu.alignment.preprocess import preprocess_features
+    from describealign_jax.alignment.preprocess import preprocess_features
 
     video, audio, _ = build_pair(
         content_seconds=150.0, narration=((50.0, 4.0), (100.0, 5.0)),
@@ -198,6 +199,42 @@ def test_streamed_coarse_dp_matches_materialized(monkeypatch):
                                   ms_v, norms_v, fv[0], nv)
     np.testing.assert_array_equal(np.asarray(got[2]), np.asarray(want[2]))
     np.testing.assert_array_equal(np.asarray(got[3]), np.asarray(want[3]))
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform, self.device_kind, self._stats = platform, 'fake', stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize('platform,stats,want', [
+    ('cpu', None, matching.COARSE_STREAM_ELEMS_HOST),
+    # an 80 GB card with JAX's default 75% pool, and a 24 GB one
+    ('gpu', {'bytes_limit': 60 * 2**30}, int(60 * 2**30 * 0.25 / 17.5)),
+    ('gpu', {'bytes_limit': 18 * 2**30}, int(18 * 2**30 * 0.25 / 17.5)),
+    ('gpu', None, RuntimeError),
+    ('gpu', {}, RuntimeError),
+])
+def test_coarse_stream_limit_follows_device_memory(monkeypatch, platform,
+                                                   stats, want):
+    """The streamed-DP threshold is a share of the memory JAX may use on
+    the device, so a smaller card streams sooner; a fixed count on the
+    CPU; an accelerator that reports no limit fails loudly."""
+    monkeypatch.setattr(matching.jax, 'local_devices',
+                        lambda: [_FakeDevice(platform, stats)])
+    matching._device_stream_elems.cache_clear()
+    try:
+        if want is RuntimeError:
+            with pytest.raises(RuntimeError, match='no memory limit'):
+                matching.coarse_stream_elems()
+        else:
+            assert matching.coarse_stream_elems() == want
+            monkeypatch.setattr(matching, 'COARSE_STREAM_ELEMS', 5)
+            assert matching.coarse_stream_elems() == 5
+    finally:
+        matching._device_stream_elems.cache_clear()
 
 
 def test_align_mismatched_raises():
@@ -231,7 +268,7 @@ def test_fit_backends_equivalent():
 
 def test_align_batch_matches_single():
     """Batched device path + threaded host stages == per-pair results."""
-    from describealign_tpu.alignment.api import (align_batch_from_pcm,
+    from describealign_jax.alignment.api import (align_batch_from_pcm,
                                                  align_from_pcm)
 
     def to_i16(x):
@@ -259,8 +296,8 @@ def test_align_batch_compact_transport_matches(monkeypatch):
     layout: codes planes carry no zero codes inside the live prefix and
     the live region is all-zero beyond the computed total."""
     import jax
-    from describealign_tpu.alignment import matching
-    from describealign_tpu.alignment.api import (_bucket_pad,
+    from describealign_jax.alignment import matching
+    from describealign_jax.alignment.api import (_bucket_pad,
                                                  align_batch_from_pcm,
                                                  host_features_padded)
 
@@ -333,8 +370,8 @@ def test_fused_batch_transport_matches_chunked():
     the chunked dispatch path they replace, and align_batch_from_pcm must
     return identical results either way (DESCRIBEALIGN_FUSED_BATCH)."""
     import jax
-    from describealign_tpu.alignment import matching
-    from describealign_tpu.alignment.api import (_bucket_pad,
+    from describealign_jax.alignment import matching
+    from describealign_jax.alignment.api import (_bucket_pad,
                                                  align_batch_from_pcm,
                                                  host_features_padded)
 
@@ -393,8 +430,8 @@ def test_streamed_compact_transport_matches(monkeypatch):
     artificially tiny budgets must route every chunk through the per-chunk
     dense fallback with identical results."""
     import jax
-    from describealign_tpu.alignment import lis, matching
-    from describealign_tpu.alignment.api import (_bucket_pad, _streamed_lis,
+    from describealign_jax.alignment import lis, matching
+    from describealign_jax.alignment.api import (_bucket_pad, _streamed_lis,
                                                  host_features_padded)
     if not lis.LisStream.available():
         pytest.skip("native library unavailable")
@@ -445,7 +482,7 @@ def test_align_rate_change():
     the median slope (exercises the coarse DP's drift tracking and the
     fused-lasso slope stage on non-unit slopes)."""
     from scipy.signal import resample_poly
-    from describealign_tpu.utils.synthmedia import speech_like
+    from describealign_jax.utils.synthmedia import speech_like
 
     content = speech_like(40.0, seed=21)
     slowed = resample_poly(content, 103, 100)  # 3% longer
@@ -471,8 +508,8 @@ def test_match_quality_values_match_reference_formula():
     Naive-Bayes form (describealign.py:662-673) computed directly with the
     numpy oracle's mean-sub/norm pipeline."""
     import jax.numpy as jnp
-    from describealign_tpu.alignment import lis, matching, preprocess
-    from describealign_tpu.alignment.api import _stack_padded
+    from describealign_jax.alignment import lis, matching, preprocess
+    from describealign_jax.alignment.api import _stack_padded
     from tests import reference_impl as ref
 
     video, audio, _ = build_pair(content_seconds=14.0, narration=(),

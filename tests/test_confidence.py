@@ -6,15 +6,15 @@ raise (describealign.py:698-699): when the winning coarse track's
 per-anchor-block score advantage over the best disjoint alternative is
 below the campaign-calibrated floor, the map is likely a self-similarity
 ridge and a WARNING line is emitted (calibration: scripts/diag_confidence.py;
-adjudication: ROUND4.md narrowband draws 02/05).
+adjudication: scripts/diag_narrowband.py draws 02/05).
 """
 import numpy as np
 
 import jax.numpy as jnp
 
-from describealign_tpu.alignment import matching
-from describealign_tpu.alignment.api import align_from_pcm, warn_low_confidence
-from describealign_tpu.utils import aligncache
+from describealign_jax.alignment import matching
+from describealign_jax.alignment.api import align_from_pcm, warn_low_confidence
+from describealign_jax.utils import aligncache
 
 from .synth import build_pair
 
@@ -61,7 +61,7 @@ def test_warn_low_confidence_line_protocol(capsys):
     out = capsys.readouterr().out
     assert out.startswith("  WARNING: low alignment confidence")
     # the GUI transcript classifier keys on the two-space WARNING prefix
-    from describealign_tpu.gui import core
+    from describealign_jax.gui import core
     assert core.classify_line(out.rstrip("\n")) == "warning"
 
     for quiet in (matching.COARSE_MARGIN_FLOOR * 2, float('inf'), None):
@@ -92,7 +92,7 @@ def test_low_margin_coarse_retry(monkeypatch):
     the floor relative to the pair's measured 3- and 5-stream margins."""
     import jax
 
-    from describealign_tpu.alignment.api import (_bucket_pad,
+    from describealign_jax.alignment.api import (_bucket_pad,
                                                  host_features_padded)
 
     video, audio, _ = build_pair(content_seconds=40.0,
@@ -148,7 +148,7 @@ def test_raise_path_coarse_retry(monkeypatch):
     runs the real stages and must recover the planted map."""
     import pytest
 
-    from describealign_tpu.alignment import api
+    from describealign_jax.alignment import api
 
     video, audio, _ = build_pair(content_seconds=40.0,
                                  narration=((8.0, 3.0),),

@@ -18,7 +18,7 @@ FAKEBIN = os.path.join(os.path.dirname(__file__), "fakebin.py")
 
 @pytest.fixture()
 def fake_ffmpeg_env(tmp_path, monkeypatch):
-    from describealign_tpu.media import ffmpeg as ff
+    from describealign_jax.media import ffmpeg as ff
     bindir = tmp_path / "bin"
     bindir.mkdir()
     for tool in ("ffmpeg", "ffprobe"):
@@ -40,7 +40,7 @@ def media_pair(tmp_path_factory):
     Gives a POSITIVE video offset, so the default mode cuts the video at a
     keyframe (the reference's `-ss` branch) instead of just offsetting."""
     import numpy as np
-    from describealign_tpu.media.decode import write_wav
+    from describealign_jax.media.decode import write_wav
     from tests.synth import speech_like
     tmp = tmp_path_factory.mktemp("fake_media")
     content = speech_like(40.0, seed=9)
@@ -55,8 +55,8 @@ def media_pair(tmp_path_factory):
 
 
 def test_default_mode_end_to_end(fake_ffmpeg_env, media_pair, tmp_path):
-    import describealign_tpu as da
-    from describealign_tpu.media.decode import parse_audio_int16
+    import describealign_jax as da
+    from describealign_jax.media.decode import parse_audio_int16
 
     video_file, audio_file = media_pair
     out_dir, plot_dir = str(tmp_path / "out"), str(tmp_path / "plots")
@@ -105,8 +105,8 @@ def test_stretch_mode_pipe_mux_end_to_end(fake_ffmpeg_env, media_pair,
     """Stretch mode through the ffmpeg stdin-PCM pipe branch (the WAV-only
     builtin path is covered elsewhere; this exercises the mux contract of
     reference describealign.py:469-488)."""
-    import describealign_tpu as da
-    from describealign_tpu.media.decode import parse_audio_int16
+    import describealign_jax as da
+    from describealign_jax.media.decode import parse_audio_int16
 
     video_file, audio_file = media_pair
     out_dir, plot_dir = str(tmp_path / "out2"), str(tmp_path / "plots2")

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from describealign_tpu.alignment.api import align_from_pcm
-from describealign_tpu.utils.synthmedia import SR, build_pair, speech_like
+from describealign_jax.alignment.api import align_from_pcm
+from describealign_jax.utils.synthmedia import SR, build_pair, speech_like
 
 
 def _i16(x):

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from describealign_tpu.ops.features import extract_features
+from describealign_jax.ops.features import extract_features
 from tests import reference_impl as ref
 
 
@@ -66,7 +66,7 @@ def test_feature_lengths():
 def test_zero_padding_extends_cleanly():
     """Padding PCM with zeros must not perturb interior feature frames.
 
-    This is what makes length-bucketed batched extraction legal on TPU.
+    This is what makes length-bucketed batched extraction legal.
     """
     pcm = make_pcm(seconds=2.0).astype(np.float32)
     padded = np.pad(pcm, ((0, 0), (0, 210 * 50)))

@@ -4,7 +4,7 @@ import types
 
 import pytest
 
-from describealign_tpu.media import ffmpeg as ff
+from describealign_jax.media import ffmpeg as ff
 
 
 @pytest.fixture()

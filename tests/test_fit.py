@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from describealign_tpu.alignment.fit import solve_l1_fit
+from describealign_jax.alignment.fit import solve_l1_fit
 
 
 def make_nodes(seed=0, n=400, n_segments=3, noise=0.6, outliers=0.02):
@@ -66,7 +66,7 @@ def test_tv_weighted_l2_kkt():
     """Exact-solver KKT check: q_k = -sum_{i<=k} w_i(theta_i - r_i) must obey
     |q_k| <= kappa_k, equality (with matching sign) where theta jumps, and
     q_{n-1} == 0 - necessary and sufficient for this convex problem."""
-    from describealign_tpu.alignment.fit_tv import _tv, tv_weighted_l2_py
+    from describealign_jax.alignment.fit_tv import _tv, tv_weighted_l2_py
     rng = np.random.default_rng(0)
     for trial in range(20):
         n = int(rng.integers(2, 200))
@@ -92,7 +92,7 @@ def test_fit_tiny_node_counts_all_backends():
     (possible only outside align(), whose path floor guarantees >= 15
     compressed nodes) must not crash any backend."""
     import numpy as np
-    from describealign_tpu.alignment.fit import solve_l1_fit
+    from describealign_jax.alignment.fit import solve_l1_fit
     for n in (3, 4, 10, 40):
         rng = np.random.default_rng(n)
         x = np.cumsum(rng.uniform(50, 200, n))

@@ -10,7 +10,7 @@ slopes/medians within 1e-3 across many seeds and regimes.
 import numpy as np
 import pytest
 
-from describealign_tpu.alignment.fit import solve_l1_fit
+from describealign_jax.alignment.fit import solve_l1_fit
 
 N_SEEDS = 18        # x 3 regimes = 54 randomized instances
 

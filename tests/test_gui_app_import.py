@@ -25,13 +25,13 @@ class _WxStub(types.ModuleType):
 def stubbed_wx(monkeypatch):
     stub = _WxStub("wx")
     monkeypatch.setitem(sys.modules, "wx", stub)
-    sys.modules.pop("describealign_tpu.gui.app", None)
+    sys.modules.pop("describealign_jax.gui.app", None)
     yield stub
-    sys.modules.pop("describealign_tpu.gui.app", None)
+    sys.modules.pop("describealign_jax.gui.app", None)
 
 
 def test_app_module_imports_and_wires_schema(stubbed_wx):
-    from describealign_tpu.gui import app
+    from describealign_jax.gui import app
     # palette has both modes with all severity colors
     for mode in (True, False):
         assert {"bg", "fg", "accent", "warn", "err"} <= set(
@@ -44,5 +44,5 @@ def test_app_module_imports_and_wires_schema(stubbed_wx):
 
 
 def test_is_dark_defaults_false_without_backend(stubbed_wx):
-    from describealign_tpu.gui import app
+    from describealign_jax.gui import app
     assert app._is_dark() is False

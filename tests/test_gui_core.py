@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from describealign_tpu.gui import core
+from describealign_jax.gui import core
 
 
 # --- transcript / progress-line state machine --------------------------------

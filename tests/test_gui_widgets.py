@@ -39,11 +39,11 @@ def app(monkeypatch):
     # force a REAL re-import under this stub: `from pkg import app` would
     # short-circuit to the stale module left as a package attribute by an
     # earlier test's import (its stub has different key constants)
-    sys.modules.pop("describealign_tpu.gui.app", None)
-    app_mod = importlib.import_module("describealign_tpu.gui.app")
+    sys.modules.pop("describealign_jax.gui.app", None)
+    app_mod = importlib.import_module("describealign_jax.gui.app")
     yield app_mod
-    sys.modules.pop("describealign_tpu.gui.app", None)
-    import describealign_tpu.gui as gui_pkg
+    sys.modules.pop("describealign_jax.gui.app", None)
+    import describealign_jax.gui as gui_pkg
     if hasattr(gui_pkg, "app"):
         delattr(gui_pkg, "app")
 
@@ -130,7 +130,7 @@ class FakeWidget:
 
 
 def _settings_dialog(app, tmp_path, values):
-    from describealign_tpu.gui.core import SETTINGS_FIELDS, SettingsModel
+    from describealign_jax.gui.core import SETTINGS_FIELDS, SettingsModel
     dlg = object.__new__(app.SettingsDialog)
     dlg.model = SettingsModel(str(tmp_path / "config.ini"))
     dlg.widgets = {spec["key"]: FakeWidget(values[spec["key"]])
@@ -139,7 +139,7 @@ def _settings_dialog(app, tmp_path, values):
 
 
 def test_refresh_enabled_gates_pitch_on_stretch(app, tmp_path):
-    from describealign_tpu.gui.core import SETTINGS_FIELDS
+    from describealign_jax.gui.core import SETTINGS_FIELDS
     base = {spec["key"]: (False if spec["kind"] == "bool" else "")
             for spec in SETTINGS_FIELDS}
     dlg = _settings_dialog(app, tmp_path, base)
@@ -179,7 +179,7 @@ class FakeTextCtrl:
 
 
 def _combine_frame(app):
-    from describealign_tpu.gui.core import TranscriptModel
+    from describealign_jax.gui.core import TranscriptModel
     frame = object.__new__(app.CombineFrame)
     frame.pal = dict(fg="FG", bg="BG", warn="WARN", err="ERR")
     frame.text = FakeTextCtrl()

@@ -3,7 +3,7 @@ fused native LIS vs the Python semantic reference."""
 import numpy as np
 import pytest
 
-from describealign_tpu.ops.host_features import (_numpy_features,
+from describealign_jax.ops.host_features import (_numpy_features,
                                                  extract_features_host)
 from tests import reference_impl as R
 
@@ -74,7 +74,7 @@ def test_host_features_fullscale_stereo_no_overflow():
 
 
 def test_lis_from_match_equals_python_reference():
-    from describealign_tpu.alignment import lis
+    from describealign_jax.alignment import lis
     rng = np.random.default_rng(21)
     nb, blk, k = 7, 210, 8
     quals = rng.uniform(0, 50, (nb, blk, k)).astype(np.float32)
@@ -94,7 +94,7 @@ def test_lis_from_match_equals_python_reference():
 def test_native_rescale_matches_numpy():
     """features.cpp rescale_feature vs the numpy rescale loop in api.py:
     identical after the f32 round (f64 reassociation noise only)."""
-    from describealign_tpu.alignment.api import _rescale_native
+    from describealign_jax.alignment.api import _rescale_native
 
     rng = np.random.default_rng(33)
     na, nv, npath = 5000, 4700, 3100
@@ -125,7 +125,7 @@ def test_native_rescale_matches_numpy():
 
 
 def test_native_rescale_rejects_out_of_range_path():
-    from describealign_tpu.alignment.api import _rescale_native
+    from describealign_jax.alignment.api import _rescale_native
     na, nv = 64, 64
     feats = np.ones((5, 64), np.float32)
     xi = np.array([0, 70], np.int64)                  # out of range

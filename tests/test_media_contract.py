@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from describealign_tpu.media.mux import encode_fit_as_ffmpeg_expr
-from describealign_tpu.utils.files import get_sorted_filenames
-from describealign_tpu.utils.sorting import os_sorted
+from describealign_jax.media.mux import encode_fit_as_ffmpeg_expr
+from describealign_jax.utils.files import get_sorted_filenames
+from describealign_jax.utils.sorting import os_sorted
 
 
 def test_setts_expression_format():
@@ -115,7 +115,7 @@ def test_mux_default_mode_command(monkeypatch, tmp_path):
     """Video-retime mux: itsoffset/ss placement, setts bsf on video AND
     subtitles, dispositions, frag_keyframe - the reference's exact contract
     (describealign.py:489-510)."""
-    from describealign_tpu.media import mux
+    from describealign_jax.media import mux
 
     calls = {}
 
@@ -157,7 +157,7 @@ def test_mux_default_mode_command(monkeypatch, tmp_path):
 def test_mux_stretch_mode_command(monkeypatch, tmp_path):
     """Stretch-mode mux: PCM piped on stdin as the new default AAC track,
     original tracks stream-copied, track renaming (reference 469-488)."""
-    from describealign_tpu.media import mux
+    from describealign_jax.media import mux
 
     calls = {}
 
@@ -189,7 +189,7 @@ def test_mux_stretch_mode_command(monkeypatch, tmp_path):
 
 def test_cli_no_args_without_gui(capsys):
     """No args + no wxPython: explain, then print usage (reference 1788)."""
-    from describealign_tpu.cli import command_line_interface
+    from describealign_jax.cli import command_line_interface
     command_line_interface([])
     out = capsys.readouterr().out
     assert "GUI dependencies missing" in out

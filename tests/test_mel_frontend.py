@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from describealign_tpu.ops import mel
+from describealign_jax.ops import mel
 
 
 def test_filterbank_shape_and_coverage():
@@ -31,8 +31,8 @@ def test_mel_frontend_aligns_offset(monkeypatch):
     """The alternative frontend must still recover a planted offset through
     the full align() pipeline (parity with the reference is NOT claimed)."""
     monkeypatch.setenv("DESCRIBEALIGN_FRONTEND", "mel")
-    from describealign_tpu.alignment.api import align_from_pcm
-    from describealign_tpu.utils.synthmedia import build_pair
+    from describealign_jax.alignment.api import align_from_pcm
+    from describealign_jax.utils.synthmedia import build_pair
     video, audio, _ = build_pair(content_seconds=30.0, narration=(),
                                  lead_in=4.0, seed=19)
     vi = np.clip(video, -32768, 32767).astype(np.int16)

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from describealign_tpu.alignment import lis, refine
-from describealign_tpu.alignment.native import native_lib
-from describealign_tpu.alignment.refine_native import (refine_dp_native,
+from describealign_jax.alignment import lis, refine
+from describealign_jax.alignment.native import native_lib
+from describealign_jax.alignment.refine_native import (refine_dp_native,
                                                        refine_dp_native_available)
 
 pytestmark = pytest.mark.skipif(native_lib() is None,
@@ -70,7 +70,7 @@ def test_qual_u8_grid_roundtrip_and_native_decode_agree():
     paths whether fed decoded f16 values or raw codes), and (c) stay
     within its 1.6% relative-step contract across the quality range."""
     import jax.numpy as jnp
-    from describealign_tpu.alignment import matching
+    from describealign_jax.alignment import matching
 
     codes = np.arange(256, dtype=np.uint8)
     vals = np.asarray(matching._qual_dequantize_f16(jnp.asarray(codes)))
@@ -127,7 +127,7 @@ def test_feed_split_equals_full_rate_feed():
     starts[:, 2] += 30000                      # rescue band far away
 
     import jax.numpy as jnp
-    from describealign_tpu.alignment import matching
+    from describealign_jax.alignment import matching
     c1 = np.asarray(matching._qual_quantize_u8(jnp.asarray(q1)))
     c2 = np.asarray(matching._qual_quantize_u8(jnp.asarray(q2)))
     full_codes = np.concatenate([c1, c2], axis=2)
@@ -149,7 +149,7 @@ def test_feed_split_equals_full_rate_feed():
     # rows) == feed_split on the unpacked arrays. Also cross-checked
     # against the device packer + api._unpack_chunk below.
     import jax.numpy as jnp2
-    from describealign_tpu.alignment import api
+    from describealign_jax.alignment import api
 
     def pack_np(codes, offs_):
         nb_, rows_, k_ = codes.shape
@@ -290,7 +290,7 @@ def test_native_cluster_scorer_matches_numpy(monkeypatch):
     offset-correction uses the rank-1 normal equations instead of numpy's
     SVD lstsq - both agree to ~1e-8 absolute, far below the pass-2 DP's
     50..1000-point decision scale."""
-    from describealign_tpu.alignment.native import native_lib
+    from describealign_jax.alignment.native import native_lib
     if native_lib() is None:
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(7)
@@ -325,7 +325,7 @@ def test_build_points_flat_matches_lists():
     pts = refine.build_points(clusters, audio_scaled, video_scaled)
     pj, pc, pq, offsets = refine.build_points_flat(clusters, audio_scaled,
                                                    video_scaled)
-    from describealign_tpu.alignment.refine_native import flat_from_points_lists
+    from describealign_jax.alignment.refine_native import flat_from_points_lists
     pj2, pc2, pq2, off2 = flat_from_points_lists(pts)
     np.testing.assert_array_equal(offsets, off2)
     np.testing.assert_allclose(pj, pj2, rtol=1e-12)
@@ -336,7 +336,7 @@ def test_build_points_flat_matches_lists():
 def test_round6_matches_python_round():
     """The native format+parse round(v, 6) twin == the Python builtin on
     random and decimal-boundary values (incl. half-to-even ties)."""
-    from describealign_tpu.alignment.refine import _round6
+    from describealign_jax.alignment.refine import _round6
     rng = np.random.default_rng(3)
     vals = np.concatenate([
         rng.uniform(-2.0, 2.0, 5000),
@@ -353,7 +353,7 @@ def test_round6_locale_independent():
     round_decimals6_f64 must pin the C locale. Skips when no such locale
     is installed (CI images often ship only C/C.utf8)."""
     import locale as pyloc
-    from describealign_tpu.alignment.refine import _round6
+    from describealign_jax.alignment.refine import _round6
     old = pyloc.setlocale(pyloc.LC_NUMERIC)
     for name in ("de_DE.UTF-8", "de_DE.utf8", "fr_FR.UTF-8", "fr_FR.utf8"):
         try:
@@ -367,3 +367,44 @@ def test_round6_locale_independent():
         assert _round6(np.array([0.9987, 1.2345675])) == [0.9987, 1.234568]
     finally:
         pyloc.setlocale(pyloc.LC_NUMERIC, old)
+
+
+def test_python_dps_run_without_sortedcontainers():
+    """The Python reference DPs use only the standard library: with
+    sortedcontainers unimportable, the Python LIS equals the native one
+    (duplicate video keys included) and the Python pass-2 DP equals its
+    native twin."""
+    import os
+    import subprocess
+    import sys
+    code = """
+import sys
+sys.modules["sortedcontainers"] = None
+import numpy as np
+from describealign_jax.alignment import lis, refine
+from describealign_jax.alignment.refine_native import refine_dp_native
+rng = np.random.default_rng(7)
+a = np.sort(rng.integers(0, 300, 3000))
+v = a + rng.integers(-30, 31, 3000)
+keep = v >= 0
+a, v = a[keep], v[keep]
+q = rng.uniform(0.05, 50.0, len(a))
+order = np.lexsort((q, v, a))
+a, v, q = a[order], v[order], q[order]
+py = lis.weighted_lis_py(a, v, q)
+cc = lis.weighted_lis_native(a, v, q)
+assert all(np.array_equal(x, y) for x, y in zip(py, cc))
+points = [sorted((float(i + off + rng.integers(-1, 2)), c,
+                  float(rng.uniform(0.5, 8.0))) for c, off in ((0, 20), (1, 60)))
+          for i in range(800)]
+dp_py = refine.refine_dp_py(points, 2, 1000)
+dp_cc = refine_dp_native(points, 2, 1000)
+assert dp_py.shape == dp_cc.shape and len(dp_py) > 100
+assert np.allclose(dp_py[:, :4], dp_cc[:, :4], rtol=1e-12)
+print("ok")
+"""
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, timeout=300,
+                       env={**os.environ, 'JAX_PLATFORMS': 'cpu'})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == 'ok'

@@ -2,10 +2,10 @@
 and the continuity utilities - semantics per reference 702-767, 995-1027."""
 import numpy as np
 
-from describealign_tpu.alignment.continuity import (compress_path,
+from describealign_jax.alignment.continuity import (compress_path,
                                                     continuity_filter,
                                                     get_continuity_err)
-from describealign_tpu.alignment.outputs import similarity_and_nodes
+from describealign_jax.alignment.outputs import similarity_and_nodes
 
 
 def make_path(n=2000, clusters=((0, 1000, 0.0), (1000, 2000, 50.0))):
@@ -87,7 +87,7 @@ def test_continuity_filter_native_matches_numpy():
         try:
             # the env gate is read at lib load; force the numpy chain by
             # calling it directly
-            from describealign_tpu.alignment.continuity import \
+            from describealign_jax.alignment.continuity import \
                 get_continuity_err
             keep = get_continuity_err(x, y) < 3.0
         finally:
@@ -101,7 +101,7 @@ def test_continuity_short_inputs_match_numpy():
     sub-taps-length inputs (the native kernel would compute a negative
     'valid' length and crash); a 17-point path through continuity_filter
     must return (all-inf err -> empty) like the pure-numpy chain."""
-    from describealign_tpu.alignment.continuity import (_conv,
+    from describealign_jax.alignment.continuity import (_conv,
                                                         _half_hann_taps)
     rng = np.random.default_rng(5)
     taps = _half_hann_taps()
@@ -117,3 +117,19 @@ def test_continuity_short_inputs_match_numpy():
     x = np.arange(17.0)
     xf, yf = continuity_filter(x, x + 3.0)
     assert len(xf) == len(yf) == 0
+
+
+def test_plot_alignment_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """matplotlib is optional: without it the .txt report is still written
+    and one line says why the .png is missing."""
+    import sys
+
+    from describealign_jax.report.plots import plot_alignment
+    monkeypatch.setitem(sys.modules, 'matplotlib', None)
+    path = np.array([[0.0, 6.0, 0, 1.0, 1.0], [10.0, 16.0, 0, 1.0, 2.0]])
+    stem = str(tmp_path / 'pair')
+    plot_alignment(stem, path, np.array([6.0, 16.0]), np.array([0.0, 10.0]),
+                   75.0, 1.0, False, False, 'ffmpeg -i in out')
+    assert 'Start Offset: 6.00 seconds' in (tmp_path / 'pair.txt').read_text()
+    assert not (tmp_path / 'pair.png').exists()
+    assert 'matplotlib is not installed' in capsys.readouterr().out

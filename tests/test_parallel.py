@@ -4,11 +4,11 @@ import jax
 import numpy as np
 import pytest
 
-from describealign_tpu.ops.features import extract_features
-from describealign_tpu.parallel.batch import (batched_match, device_align_step,
+from describealign_jax.ops.features import extract_features
+from describealign_jax.parallel.batch import (batched_match, device_align_step,
                                               make_mesh, sharded_match)
-from describealign_tpu.parallel.seqshard import sequence_sharded_features
-from describealign_tpu.utils.synthmedia import build_pair
+from describealign_jax.parallel.seqshard import sequence_sharded_features
+from describealign_jax.utils.synthmedia import build_pair
 
 N_DEV = 8
 
@@ -76,77 +76,11 @@ def test_sharded_match_equals_batched(small_batch):
     np.testing.assert_allclose(np.asarray(margins_s), np.asarray(margins_b),
                                rtol=1e-5, atol=1e-6)
 
-def test_fine_kernel_matches_xla():
-    """The fused Pallas fine-match kernel (interpret mode on CPU; the
-    production fine pass on TPU) must produce the XLA lax.map path's
-    candidate sets, including a NONZERO audio start (the streamed chunk
-    configuration the round-2 kernel could not serve)."""
-    import jax.numpy as jnp
-    from describealign_tpu.alignment import matching, preprocess
-    from describealign_tpu.alignment.api import _bucket_pad, _stack_padded
-    from describealign_tpu.ops.features import extract_features
-    from describealign_tpu.ops.fine_kernel import fine_match_fused
-
-    video, audio, _ = build_pair(content_seconds=14.0, narration=(),
-                                 lead_in=2.0, seed=0)
-    fs_a = [np.asarray(f) for f in extract_features(audio)]
-    fs_v = [np.asarray(f) for f in extract_features(video)]
-    na = min(len(f) for f in fs_a)
-    nv = min(len(f) for f in fs_v)
-    npad = 210 * 20
-    fa = _stack_padded(fs_a, na, npad)
-    fv = _stack_padded(fs_v, nv, npad)
-    ms_a, norms_a = preprocess.preprocess_features(fa)
-    ms_v, norms_v = preprocess.preprocess_features(fv)
-    quals, vids, centers, _ = matching.match_pair(
-        ms_a, norms_a, fa[0], na, ms_v, norms_v, fv[0], nv)
-    # compare only the primary track's band (first TOP_K slots): the
-    # kernel below runs a single band at the same starts
-    quals = quals[:, :, :matching.TOP_K]
-    vids = vids[:, :, :matching.TOP_K]
-    nb = centers.shape[0]
-    a_mask = preprocess.valid_audio_mask(fa[0], na)
-    v_mask = preprocess.valid_video_mask(fv[0], nv)
-    starts = jnp.clip(
-        jnp.arange(nb, dtype=jnp.int32) * matching.BLOCK + centers
-        - matching.FINE_HALF_BAND, 0,
-        npad - (matching.FINE_W + preprocess.WINDOW - 1))
-    a_starts = jnp.arange(nb, dtype=jnp.int32) * matching.BLOCK
-    qp, op = fine_match_fused(ms_a, norms_a, a_mask.astype(jnp.float32),
-                              ms_v, norms_v, v_mask.astype(jnp.float32),
-                              starts, a_starts, interpret=True)
-    vp = np.asarray(starts)[:, None, None] + np.asarray(op)
-    # chunk configuration: blocks 2.. as a chunk with b0=2 must reproduce
-    # the full pass's rows 2..
-    qp2, op2 = fine_match_fused(ms_a, norms_a, a_mask.astype(jnp.float32),
-                                ms_v, norms_v, v_mask.astype(jnp.float32),
-                                starts[2:], a_starts[2:], interpret=True)
-    np.testing.assert_array_equal(np.asarray(qp2), np.asarray(qp)[2:])
-    np.testing.assert_array_equal(np.asarray(op2), np.asarray(op)[2:])
-    qn, vn = np.asarray(quals), np.asarray(vids)
-    qpn, vpn = np.asarray(qp), np.asarray(vp)
-    # same candidate SET (f32 op-order reshuffles near-equal quals within a
-    # row's top-K slots, so compare as sets keyed by (block, frame, video))
-    def key_qual(q, v):
-        nzb, nzl, nzk = np.nonzero(q > 0)
-        return dict(zip(zip(nzb.tolist(), nzl.tolist(),
-                            v[nzb, nzl, nzk].tolist()),
-                        q[nzb, nzl, nzk].tolist()))
-    dx = key_qual(qn, vn)
-    dp = key_qual(qpn, vpn)
-    assert set(dx) == set(dp)
-    rel = [abs(dp[k] - dx[k]) / dx[k] for k in dx]
-    assert np.percentile(rel, 99) < 1e-3
-    # top-1 per frame agrees exactly
-    top1 = (vpn[:, :, 0] == vn[:, :, 0]) | ((qpn[:, :, 0] == 0)
-                                            & (qn[:, :, 0] == 0))
-    assert top1.all()
-
 
 def test_align_batch_sharded_equals_serial():
     """The mesh-sharded batch API must produce the same alignments as the
     serial pipelined path (ragged group: 3 pairs on an 8-device mesh)."""
-    from describealign_tpu.alignment.api import align_batch_from_pcm
+    from describealign_jax.alignment.api import align_batch_from_pcm
 
     pairs, lens = [], []
     for seed in (31, 32, 33):

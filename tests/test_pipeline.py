@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from describealign_tpu.media.decode import parse_audio_from_file, write_wav
+from describealign_jax.media.decode import parse_audio_from_file, write_wav
 from tests.synth import build_pair
 
 
@@ -21,7 +21,7 @@ def wav_pair(tmp_path_factory):
 
 
 def test_combine_stretch_wav_end_to_end(wav_pair, tmp_path):
-    import describealign_tpu as da
+    import describealign_jax as da
     video_wav, audio_wav, segments = wav_pair
     out_dir = str(tmp_path / "out")
     plot_dir = str(tmp_path / "plots")
@@ -45,7 +45,7 @@ def test_combine_stretch_wav_end_to_end(wav_pair, tmp_path):
 
 
 def test_combine_resume_skips_existing(wav_pair, tmp_path, capsys):
-    import describealign_tpu as da
+    import describealign_jax as da
     video_wav, audio_wav, _ = wav_pair
     out_dir = str(tmp_path / "out2")
     os.makedirs(out_dir)
@@ -59,7 +59,7 @@ def test_combine_resume_skips_existing(wav_pair, tmp_path, capsys):
 
 
 def test_combine_requires_stretch_for_audio_pairs(wav_pair, tmp_path):
-    import describealign_tpu as da
+    import describealign_jax as da
     video_wav, audio_wav, _ = wav_pair
     with pytest.raises(RuntimeError, match="ffmpeg|stretch_audio"):
         da.combine([video_wav], [audio_wav], stretch_audio=False, yes=True,
@@ -68,7 +68,7 @@ def test_combine_requires_stretch_for_audio_pairs(wav_pair, tmp_path):
 
 
 def test_cli_version(capsys):
-    from describealign_tpu.cli import command_line_interface
+    from describealign_jax.cli import command_line_interface
     command_line_interface(['--version'])
     out = capsys.readouterr().out
     assert "version:" in out
@@ -78,7 +78,7 @@ def test_cli_version(capsys):
 def test_cli_version_provenance_installed(capsys):
     """find_spec resolves to this package -> 'installed package'
     (reference describealign.py:1820-1840)."""
-    from describealign_tpu.cli import command_line_interface
+    from describealign_jax.cli import command_line_interface
     command_line_interface(['--version'])
     assert "running from installed package" in capsys.readouterr().out
 
@@ -86,7 +86,7 @@ def test_cli_version_provenance_installed(capsys):
 def test_cli_version_provenance_downloaded(capsys, monkeypatch):
     """A package that isn't the find_spec-resolved one -> 'downloaded'."""
     import importlib.util
-    from describealign_tpu.cli import command_line_interface
+    from describealign_jax.cli import command_line_interface
     monkeypatch.setattr(importlib.util, 'find_spec', lambda name: None)
     command_line_interface(['--version'])
     assert "running from downloaded .py file" in capsys.readouterr().out
@@ -95,7 +95,7 @@ def test_cli_version_provenance_downloaded(capsys, monkeypatch):
 def test_cli_version_provenance_compiled(capsys, monkeypatch):
     """PyInstaller-style frozen interpreter -> 'compiled binary'."""
     import sys as _sys
-    from describealign_tpu.cli import command_line_interface
+    from describealign_jax.cli import command_line_interface
     monkeypatch.setattr(_sys, 'frozen', True, raising=False)
     command_line_interface(['--version'])
     out = capsys.readouterr().out
@@ -107,7 +107,7 @@ def test_cli_warmup_compiles_buckets(capsys):
     """--warmup MIN pre-compiles every bucket a MIN-minute file can hit,
     including the fused batch-transport program the multi-pair combine()
     path dispatches (api.warmup_compile)."""
-    from describealign_tpu.cli import command_line_interface
+    from describealign_jax.cli import command_line_interface
     command_line_interface(['--warmup', '1'])
     out = capsys.readouterr().out
     assert "compiling bucket" in out
@@ -116,13 +116,13 @@ def test_cli_warmup_compiles_buckets(capsys):
 
 def test_alignment_cache_reused(wav_pair, tmp_path, capsys, monkeypatch):
     """Second run with a fresh output dir must reuse the cached alignment."""
-    import describealign_tpu as da
+    import describealign_jax as da
     video_wav, audio_wav, _ = wav_pair
     plot_dir = str(tmp_path / "plots")
     da.combine([video_wav], [audio_wav], stretch_audio=True, yes=True,
                output_dir=str(tmp_path / "o1"), alignment_dir=plot_dir)
     capsys.readouterr()
-    import describealign_tpu.alignment.api as api_mod
+    import describealign_jax.alignment.api as api_mod
 
     def boom(*a, **k):
         raise AssertionError("align() should not run on a cache hit")
@@ -136,7 +136,7 @@ def test_alignment_cache_reused(wav_pair, tmp_path, capsys, monkeypatch):
 
 def test_combine_no_pitch_correction(wav_pair, tmp_path):
     """BASELINE config 4: raw-resample stretch (--no_pitch_correction)."""
-    import describealign_tpu as da
+    import describealign_jax as da
     video_wav, audio_wav, _ = wav_pair
     out_dir = str(tmp_path / "out_np")
     da.combine([video_wav], [audio_wav], stretch_audio=True, yes=True,
@@ -151,7 +151,7 @@ def test_combine_no_pitch_correction(wav_pair, tmp_path):
 def test_combine_directory_mode_two_pairs(tmp_path):
     """Directory inputs: natural-sort pairing, decode-ahead loop, two
     outputs (reference combine's batch behavior, describealign.py:1077)."""
-    import describealign_tpu as da
+    import describealign_jax as da
     vids = tmp_path / "vids"
     auds = tmp_path / "auds"
     vids.mkdir()
@@ -174,7 +174,7 @@ def test_combine_stage_progress_lines(wav_pair, tmp_path, capsys,
                                       monkeypatch):
     """Sequential per-pair runs print the reference's per-stage progress
     line sequence (describealign.py:1097-1113 + align's own lines)."""
-    import describealign_tpu as da
+    import describealign_jax as da
     monkeypatch.setenv('DESCRIBEALIGN_BATCH', '0')
     video_wav, audio_wav, _ = wav_pair
     da.combine([video_wav], [audio_wav], stretch_audio=True, yes=True,
@@ -218,8 +218,8 @@ def test_combine_directory_batched_matches_sequential(wav_three_pair_dirs,
     pipelined batch replacement for the reference's sequential loop,
     describealign.py:1077) and produces byte-identical reports vs the
     sequential path (DESCRIBEALIGN_BATCH=0)."""
-    import describealign_tpu as da
-    import describealign_tpu.alignment.api as api_mod
+    import describealign_jax as da
+    import describealign_jax.alignment.api as api_mod
     vids, auds = wav_three_pair_dirs
 
     calls = {"batch": 0, "single": 0}
@@ -267,7 +267,7 @@ def test_combine_batched_skip_and_cache_interleave(wav_three_pair_dirs,
                                                    capsys):
     """Batched directory mode preserves skip/resume and cached-alignment
     semantics for interleaved pairs."""
-    import describealign_tpu as da
+    import describealign_jax as da
     vids, auds = wav_three_pair_dirs
     out_dir = tmp_path / "out"
     out_dir.mkdir()
@@ -286,7 +286,7 @@ def test_combine_batched_skip_and_cache_interleave(wav_three_pair_dirs,
     # second run into a fresh output dir: pairs 1/3 hit the alignment
     # cache, pair 2 aligns for the first time - align() must not run for
     # the cached ones (cache-hit semantics survive batching)
-    import describealign_tpu.alignment.api as api_mod
+    import describealign_jax.alignment.api as api_mod
     real_batch = api_mod.align_batch_from_pcm
     real_single = api_mod.align_from_pcm
     seen = {"batch_pairs": 0, "single": 0}
@@ -315,8 +315,8 @@ def test_combine_directory_mesh_matches_batched(wav_three_pair_dirs,
     mesh-sharded matcher (api._align_batch_sharded, one pair per device
     over the virtual CPU mesh) with byte-identical reports vs the
     single-device batch path - the product wiring for multi-chip hosts."""
-    import describealign_tpu as da
-    import describealign_tpu.alignment.api as api_mod
+    import describealign_jax as da
+    import describealign_jax.alignment.api as api_mod
     vids, auds = wav_three_pair_dirs
 
     calls = {"sharded": 0}

@@ -5,7 +5,7 @@ executed in place - never copied - and its align() (lines 595-1027) is run
 on synthetic pairs next to ours. Both sides get the same feature arrays
 (computed by the reference's own extractors), so this compares the
 alignment algorithms end to end: hash-bin matching + LIS + linprog +
-pass-2 vs our coarse-DP + banded-MXU matching + fused-lasso + pass-2.
+pass-2 vs our coarse-DP + banded matching + fused-lasso + pass-2.
 
 Acceptance (BASELINE.md): recovered mappings within 0.25 s, similarity
 within a few percent, median slope within 2e-3.
@@ -16,7 +16,7 @@ import types
 import numpy as np
 import pytest
 
-from describealign_tpu.utils.synthmedia import speech_like
+from describealign_jax.utils.synthmedia import speech_like
 
 REF_DIR = "/root/reference"
 SR = 44100
@@ -53,7 +53,7 @@ def _features(ref, pcm_f16):
 
 
 def _run_both(ref, video_f16, audio_f16):
-    import describealign_tpu as da
+    import describealign_jax as da
     vf = _features(ref, video_f16)
     af = _features(ref, audio_f16)
     r = ref.align([np.asarray(f) for f in vf], [np.asarray(f) for f in af],
@@ -209,7 +209,7 @@ def test_parity_music_bed_short_segments(ref):
     jump economics (5-7 s misalignments at DP_JUMP_COST=4; fixed at 2).
     Reproduces draw 25's structure: bed ratio 0.67, 9-s lead, skips at
     10.3/22.6/43.0 s."""
-    from describealign_tpu.utils.synthmedia import music_bed
+    from describealign_jax.utils.synthmedia import music_bed
     content = speech_like(62.0, seed=77) + 0.67 * music_bed(62.0, seed=577)
     video = _quantize(content)
     pieces = [speech_like(9.0, seed=1077, amp=5000.0),
@@ -234,7 +234,7 @@ def test_parity_music_bed_short_first_segment(ref):
     cheaper jumps recover short segments whose per-block margin over the
     bed floor cannot amortize the jump. Reproduces the draw's structure:
     5.06-s lead, skip at 10.02 s for 5.57 s, bed ratio 0.41."""
-    from describealign_tpu.utils.synthmedia import music_bed
+    from describealign_jax.utils.synthmedia import music_bed
     content = speech_like(86.15, seed=917) + 0.41 * music_bed(86.15,
                                                               seed=1417)
     video = _quantize(content)
@@ -307,7 +307,7 @@ def test_parity_pal_rate(ref):
     Reference behavior: align() (describealign.py:595-1027) recovers the
     slope via its hash-bin matches + linprog fit; median slope = 24/25."""
     from scipy.signal import resample_poly
-    from describealign_tpu.utils.synthmedia import music_bed
+    from describealign_jax.utils.synthmedia import music_bed
     content = speech_like(60.0, seed=47) + 0.6 * music_bed(60.0, seed=547)
     slowed = resample_poly(content, 25, 24)
     video = _quantize(content)

@@ -1,8 +1,8 @@
 """Stretch-mode kernels: resampler and phase vocoder."""
 import numpy as np
 
-from describealign_tpu.stretch.resample import resample_segment
-from describealign_tpu.stretch.phase_vocoder import pv_stretch
+from describealign_jax.stretch.resample import resample_segment
+from describealign_jax.stretch.phase_vocoder import pv_stretch
 
 SR = 44100
 
@@ -69,7 +69,7 @@ def test_pv_host_chunked_matches_whole_segment(monkeypatch):
     whole-segment pipeline frame by frame; only the overlap-add's FP
     accumulation ORDER differs at block seams, so outputs agree to
     rounding scale."""
-    from describealign_tpu.stretch import phase_vocoder as pv
+    from describealign_jax.stretch import phase_vocoder as pv
     rng = np.random.default_rng(7)
     n = int(SR * 30.0)
     sig = (np.stack([rng.standard_normal(n), rng.standard_normal(n)])
@@ -88,8 +88,8 @@ def test_pv_host_chunked_matches_whole_segment(monkeypatch):
 def test_phase_lock_carry_native_matches_numpy(monkeypatch):
     """pv_phase_lock_carry (C++) and the numpy fallback's seeded
     recurrence compute the same locked phases."""
-    from describealign_tpu.stretch import phase_vocoder as pv
-    from describealign_tpu.alignment import native as native_mod
+    from describealign_jax.stretch import phase_vocoder as pv
+    from describealign_jax.alignment import native as native_mod
     rng = np.random.default_rng(11)
     c, f, bins = 2, 9, 33
     phase_a = rng.uniform(-np.pi, np.pi, (c, f, bins)).astype(np.float32)
@@ -105,7 +105,7 @@ def test_phase_lock_carry_native_matches_numpy(monkeypatch):
 def test_wsola_preserves_pitch_and_samples():
     """The reference-parity splicer: pitch unchanged, content is literal
     copies of input spans (no resampling artifacts)."""
-    from describealign_tpu.stretch.wsola import wsola_stretch
+    from describealign_jax.stretch.wsola import wsola_stretch
     rng = np.random.default_rng(3)
     t = np.arange(int(3.0 * SR)) / SR
     sig = (6000 * np.sin(2 * np.pi * 440 * t)
@@ -129,7 +129,7 @@ def test_wsola_preserves_pitch_and_samples():
 def test_wsola_default_stretcher():
     """WSOLA is the default stretcher (reference-parity algorithm AND 5x
     faster than the PV on all-stretched media, PERF.md round 4)."""
-    from describealign_tpu.stretch import segments
+    from describealign_jax.stretch import segments
     video = tone(300, 10.0)
     audio = tone(440, 10.5)
     # one segment: audio [0, 10.3s] -> video [0, 10.0s] (3% stretch)
@@ -142,7 +142,7 @@ def test_wsola_default_stretcher():
 def test_pv_backend_selectable(monkeypatch):
     """DESCRIBEALIGN_STRETCH=pv routes stretched segments through the
     phase vocoder."""
-    from describealign_tpu.stretch import segments
+    from describealign_jax.stretch import segments
     monkeypatch.setenv('DESCRIBEALIGN_STRETCH', 'pv')
     video = tone(300, 10.0)
     audio = tone(440, 10.5)
@@ -157,8 +157,8 @@ def test_resample_native_matches_numpy(monkeypatch):
     (f64 positions, half-to-even rounding, f32 weighting order, f16-grid
     write-back) - on noise, where any position/rounding drift shows."""
     import pytest as _pytest
-    from describealign_tpu.alignment import native as native_mod
-    from describealign_tpu.stretch import resample
+    from describealign_jax.alignment import native as native_mod
+    from describealign_jax.stretch import resample
 
     if native_mod.native_lib() is None or not hasattr(
             native_mod.native_lib(), 'resample_quad'):

@@ -115,7 +115,7 @@ def _reference_decisions(ref, x, y, no_pitch_correction):
 
 
 def _our_decisions(x, y, no_pitch_correction, monkeypatch):
-    from describealign_tpu.stretch import segments
+    from describealign_jax.stretch import segments
 
     calls = {}
 
